@@ -1,4 +1,4 @@
-"""Diagnose the f32 stall at benchmark scale (VERDICT r3 item 3).
+"""Diagnose an f32 stall at benchmark scale.
 
 Runs the selfcal 1k-img block's GN iteration in f32 and decomposes
 L1(delta) per parameter family (EOP positions, EOP angles, IOPs,
@@ -33,7 +33,7 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from fish_eye_bundle_adjustment_tpu.solver.schur import (
-        ObsData, SchurKernel, SchurOptions, make_band_plan, schur_step_fn,
+        ObsData, SchurKernel, SchurOptions, schur_step_fn,
     )
     from fish_eye_bundle_adjustment_tpu.synth import make_block
     from fish_eye_bundle_adjustment_tpu.utils.layout import ParamLayout
@@ -54,16 +54,10 @@ def main(argv=None):
         dtype=np.float32, cg_maxiter=40, cg_tol=1e-6, obs_order="tie"
     )
     kernel = SchurKernel(layout, opts, obs_order="tie")
-    plan = make_band_plan(problem, layout, opts)
-    if plan is not None:
-        obs = ObsData.from_problem(
-            problem, layout, dtype=np.float32, band_plan=plan
-        )
-    else:
-        order = ObsData.sort_order_by_tie(problem, layout)
-        obs = ObsData.from_problem(
-            problem, layout, dtype=np.float32, order=order, with_plan=True
-        )
+    order = ObsData.sort_order_by_tie(problem, layout)
+    obs = ObsData.from_problem(
+        problem, layout, dtype=np.float32, order=order, with_plan=True
+    )
     ne, ni = layout.n_eop, layout.n_iop
     n_img = problem.n_img
     eop_n = ne * n_img

@@ -1,9 +1,7 @@
-"""Linearize-stage breakdown on the chip (the dominant non-CG cost of
-the fused GN step after r4: ~23 ms of the 59.5 ms step).
+"""Linearize-stage breakdown of the f32 GN step on one device.
 
-Times: Jacobian blocks (vmap jacfwd), the sym6 tie reduction + Hpp
-inverse, and the transposed fused-stream construction, to direct the
-next kernel-fusion round.
+Times: the full linearization, the Jacobian blocks (vmap jacfwd), the
+sym6 tie reduction, and the EOP / point gathers feeding the blocks.
 
 Usage: python bench_linearize.py [--selfcal]
 """
@@ -38,7 +36,7 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from fish_eye_bundle_adjustment_tpu.solver.schur import (
-        ObsData, SchurKernel, SchurOptions, make_band_plan,
+        ObsData, SchurKernel, SchurOptions,
     )
     from fish_eye_bundle_adjustment_tpu.synth import make_block
     from fish_eye_bundle_adjustment_tpu.utils.layout import ParamLayout
@@ -57,9 +55,9 @@ def main(argv=None):
     layout = ParamLayout(problem)
     opts = SchurOptions(dtype=np.float32, obs_order="tie")
     kernel = SchurKernel(layout, opts, obs_order="tie")
-    plan = make_band_plan(problem, layout, opts)
     obs = ObsData.from_problem(
-        problem, layout, dtype=np.float32, band_plan=plan
+        problem, layout, dtype=np.float32,
+        order=ObsData.sort_order_by_tie(problem, layout), with_plan=True,
     )
     q = jnp.asarray((layout.initial() * layout.scale).astype(np.float32))
 
@@ -83,23 +81,6 @@ def main(argv=None):
         return obs.plan.primary_sum(sym6)
 
     print(f"sym6 + tie segsum:     {timeit(lambda: sym6_hpp(outs))*1e3:7.2f} ms")
-
-    @jax.jit
-    def transposes(rxall):
-        rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy = rxall
-        wx, wy = obs.W[:, 0], obs.W[:, 1]
-        sx = jnp.sqrt(wx)
-        sy = jnp.sqrt(wy)
-        rows = [(Jex * sx[:, None]).T, (Jey * sy[:, None]).T]
-        if Jix.shape[1]:
-            rows += [(Jix * sx[:, None]).T, (Jiy * sy[:, None]).T]
-        acam = jnp.concatenate(rows, axis=0)
-        apt = jnp.concatenate(
-            [(Jpx * sx[:, None]).T, (Jpy * sy[:, None]).T], axis=0
-        )
-        return acam.sum(), apt.sum()
-
-    print(f"fold + transposes:     {timeit(lambda: transposes(outs))*1e3:7.2f} ms")
 
     # gathers feeding blocks()
     eop, iop, pts = layout.unpack_scaled(q)

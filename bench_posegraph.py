@@ -1,9 +1,9 @@
-"""Pose-graph end-to-end wall time (BASELINE configs[5] evidence).
+"""Pose-graph end-to-end wall time.
 
 Runs the full partition -> parallel block solves -> similarity merge ->
-global refine pipeline on the single-chip bench block and records the
-end-to-end wall time plus merge quality (VERDICT r3 item 4: the block
-solves now dispatch concurrently, parallel/posegraph.py).
+global refine pipeline on the single-device bench block and records the
+end-to-end wall time plus merge quality (the block solves dispatch
+concurrently, parallel/posegraph.py).
 
 Usage: python bench_posegraph.py [--n-img 1000] [--n-pts 100000]
        [--blocks 4]

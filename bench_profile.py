@@ -1,10 +1,9 @@
-"""Component-level profile of the Schur GN step on the real chip.
+"""Component-level profile of the Schur GN step on one device.
 
 Times each stage of the step (linearize, preconditioner, reduced RHS, one
 S matvec, back-substitution) plus the primitive ops that dominate them
 (row gathers, sorted segment sums) so kernel work targets measured cost,
-not guesses.  Used to drive the round-3 speed-of-light work; results are
-recorded in BASELINE.md.
+not guesses.
 
 Usage: python bench_profile.py [--n-img 1000] [--n-pts 100000] [--f64]
 """

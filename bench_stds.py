@@ -1,9 +1,9 @@
-"""Stds-at-scale measurement (VERDICT r3 item 6).
+"""Stds-at-scale measurement.
 
 Times the Hutchinson selected-diagonal estimator on blocks past any
 feasible exact-covariance size and quantifies its error against the
 exact dense-S block covariance on the largest block where the exact
-path still runs.  Results are recorded in BASELINE.md.
+path still runs.
 
 Usage: python bench_stds.py [--accuracy-img 500] [--scale-img 5000]
        [--n-probe 16]
@@ -56,13 +56,7 @@ def main(argv=None):
     layout = ParamLayout(p)
     res = _solve(p)
     t0 = time.perf_counter()
-    # the exact block-covariance path is f64 + host-sized chunked pair
-    # scatters (solver/covariance.py) — pin it to the CPU backend (the
-    # chip would OOM on the pair chunks and has no f64 LU anyway)
-    import jax
-
-    with jax.default_device(jax.devices("cpu")[0]):
-        exact = schur_covariance(p, layout, res.x, res.sigma02).std
+    exact = schur_covariance(p, layout, res.x, res.sigma02).std
     t_exact = time.perf_counter() - t0
     t0 = time.perf_counter()
     est = estimate_schur_stds(
@@ -88,9 +82,8 @@ def main(argv=None):
 
     # ---- wall time at scale (no exact possible) -------------------------
     # mild initialization: at 5k images the default synth perturbations
-    # (pose 0.5 / point 1.0) genuinely diverge undamped Gauss-Newton in
-    # BOTH the fused and XLA paths (measured r4) — this harness times
-    # the std estimator, so start near the basin
+    # (pose 0.5 / point 1.0) can diverge undamped Gauss-Newton — this
+    # harness times the std estimator, so start near the basin
     blk = make_block(
         n_img=args.scale_img, n_pts=args.scale_pts, model="fisheye",
         seed=4, settings_overrides={"inner_constraints": False},

@@ -1,18 +1,14 @@
-"""BASELINE configs[5] 10k-image block ON THE TPU CHIP (prints ONE JSON
-line; committed as TENK_r05.json).
+"""BASELINE.json configs[5] 10k-image block on one device (prints ONE
+JSON line).
 
-TENK_r04 was a CPU fake-mesh functional run only — the 10k / 11.1M-obs
-block had never touched the chip (bench_scaling.py forces jax_platforms=
-cpu for the fake mesh).  This harness runs it single-device on the real
-TPU through the production fused f32 path:
+Runs the 10k / 11.1M-obs block single-device through the f32 XLA
+matrix-free path:
 
-1. band-plan geometry at 10k images (the W <= 2048 cap question —
-   measured: W = 640, T = 1792, read amplification 1.27);
-2. per-step wall time + observations/s (5 host-synced steps, 10-CG);
-3. a CONVERGED adjustment (adaptive-LM + CG curvature guard + plateau
+1. per-step wall time + observations/s (5 host-synced steps, 10-CG);
+2. a CONVERGED adjustment (adaptive-LM + CG curvature guard + plateau
    detection, cg_maxiter=40), recording iterations, sigma0^2, stop
    reason, and wall time;
-4. device memory stats where the backend exposes them.
+3. device memory stats where the backend exposes them.
 
 Usage: python bench_tenk.py [--n-img 10000] [--n-pts 1000000]
 """
@@ -38,8 +34,7 @@ def main():
     import jax.numpy as jnp
 
     from fish_eye_bundle_adjustment_tpu.solver.schur import (
-        ObsData, SchurKernel, SchurOptions, make_band_plan, schur_step_fn,
-        solve_schur,
+        ObsData, SchurKernel, SchurOptions, schur_step_fn, solve_schur,
     )
     from fish_eye_bundle_adjustment_tpu.synth import make_block
     from fish_eye_bundle_adjustment_tpu.utils.layout import ParamLayout
@@ -58,31 +53,17 @@ def main():
 
     opts = SchurOptions(dtype=np.float32, cg_maxiter=10, cg_tol=1e-6)
     kernel = SchurKernel(layout, opts, obs_order="tie")
-    plan = make_band_plan(problem, layout, opts)
     result = {
-        "metric": "tenk_tpu_single_device",
+        "metric": "tenk_single_device",
         "block": {"n_img": problem.n_img, "n_tie": problem.n_tie,
                   "n_obs": problem.n_obs, "u": int(layout.u)},
         "backend": jax.default_backend(),
         "device": str(jax.devices()[0]),
     }
-    if plan is None:
-        result["band_plan"] = None
-        print("# band plan REJECTED — XLA path", file=sys.stderr)
-        obs = ObsData.from_problem(
-            problem, layout, dtype=np.float32,
-            order=ObsData.sort_order_by_tie(problem, layout), with_plan=True,
-        )
-    else:
-        result["band_plan"] = {
-            "W": plan.W, "T": plan.T, "G": plan.G, "M": plan.M,
-            "n_pad": plan.n_pad,
-            "read_amplification": round(plan.read_amplification, 3),
-            "under_W_cap": bool(plan.W <= opts.band_max_W),
-        }
-        obs = ObsData.from_problem(
-            problem, layout, dtype=np.float32, band_plan=plan
-        )
+    obs = ObsData.from_problem(
+        problem, layout, dtype=np.float32,
+        order=ObsData.sort_order_by_tie(problem, layout), with_plan=True,
+    )
     step = jax.jit(schur_step_fn(kernel, layout, False))
     x0 = jnp.asarray(layout.initial().astype(np.float32))
     tol = jnp.asarray(1e-4, np.float32)

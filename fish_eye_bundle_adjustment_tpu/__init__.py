@@ -1,8 +1,8 @@
-"""TPU-native fish-eye bundle adjustment framework.
+"""Fish-eye bundle adjustment framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 wynandtredoux/Fish-Eye_Bundle_Adjustment (a dense, serial MATLAB
-photogrammetric bundle adjuster — see /root/reference): five projection
+photogrammetric bundle adjuster): five projection
 models (equidistant fisheye, pinhole, equisolid, orthographic,
 stereographic), self-calibration (principal point/distance + radial and
 decentering lens distortion), inner-constraints free-network datum, and the
@@ -12,8 +12,8 @@ stack the reference lacks.
 
 Numerical note: bundle adjustment normal equations are ill-conditioned
 (condition numbers >1e12 with high-order radial terms), so the package
-enables float64 globally.  Performance-critical kernels downcast
-explicitly where mixed precision is safe.
+enables float64 globally; float32 runs are opt-in per solve
+(SchurOptions.dtype).
 """
 
 from jax import config as _jax_config

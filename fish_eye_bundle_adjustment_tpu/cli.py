@@ -33,6 +33,13 @@ def main(folder, plot: bool = True, cfg: Optional[str] = None,
 
     folder = Path(folder)
     out_dir = Path(out_dir) if out_dir else folder
+    if plot:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("Error: plots need matplotlib, which is not installed; "
+                  "pass --no-plots to skip them", file=sys.stderr)
+            return 1
     try:
         problem = load_problem(folder, fallback_cfg=Path(cfg) if cfg else None)
     except (DatasetError, ConfigError, OSError) as e:
@@ -100,27 +107,10 @@ def _solve(problem, solver: str, checkpoint: Optional[str] = None,
             problem, progress_fn=log_progress, checkpoint_path=checkpoint,
             keep_history=keep_history,
         )
-    if solver in ("distributed", "sharded", "fused_sharded"):
+    if solver in ("distributed", "sharded"):
         from fish_eye_bundle_adjustment_tpu.parallel.mesh import make_mesh
 
         mesh = make_mesh(devices)
-        if solver == "fused_sharded":
-            # fused banded Pallas kernel under shard_map (f32, one
-            # camera, tie points — parallel/fusedshard.py)
-            import numpy as _np
-
-            from fish_eye_bundle_adjustment_tpu.parallel.fusedshard import (
-                solve_schur_fused_sharded,
-            )
-            from fish_eye_bundle_adjustment_tpu.solver.schur import (
-                SchurOptions,
-            )
-
-            return solve_schur_fused_sharded(
-                problem, mesh, options=SchurOptions(dtype=_np.float32),
-                progress_fn=log_progress, checkpoint_path=checkpoint,
-                keep_history=keep_history, compute_covariance=True,
-            )
         if solver == "distributed":
             from fish_eye_bundle_adjustment_tpu.parallel.dist_schur import (
                 solve_schur_distributed,
@@ -189,7 +179,7 @@ def batch(root, plot: bool = False, cfg: Optional[str] = None, solver: str = "au
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="fish_eye_bundle_adjustment_tpu",
-        description="TPU-native fish-eye bundle adjustment",
+        description="Fish-eye bundle adjustment",
     )
     ap.add_argument("folder", nargs="?", default=".", help="dataset folder (default: cwd)")
     ap.add_argument("--batch", metavar="ROOT", help="recursively adjust every dataset under ROOT")
@@ -198,14 +188,12 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--solver",
         choices=("auto", "dense", "schur", "distributed", "sharded",
-                 "fused_sharded", "posegraph"),
+                 "posegraph"),
         default="auto",
         help="dense parity solver, Schur-complement solver, size-based auto, "
              "or the scale modes: distributed (obs-sharded over a device "
              "mesh), sharded (obs-sharded + sharded camera state), "
-             "fused_sharded (the banded Pallas kernel under shard_map; f32 "
-             "single-camera), posegraph "
-             "(partition -> block solves -> similarity merge -> refine)",
+             "posegraph (partition -> block solves -> similarity merge -> refine)",
     )
     ap.add_argument("--devices", type=int,
                     help="mesh size for --solver distributed/sharded "
@@ -219,11 +207,16 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def cli(argv=None) -> int:
+    import jax
+
+    from fish_eye_bundle_adjustment_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
     args = _build_parser().parse_args(argv)
     if args.cpu:
-        import jax
-
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
     if args.batch:
         return batch(args.batch, plot=not args.no_plots, cfg=args.cfg, solver=args.solver)
     return main(

@@ -1,11 +1,11 @@
 """Scatter-free segment reductions for sorted observation streams.
 
-XLA:TPU scatter-add costs ~10-16 ns/row (serialized row updates) — it is
-the dominant cost in the Schur solver's gather/segment-sum pipeline.  For a
-SORTED id stream, a segment sum is expressible as differences of prefix
-sums: two row-gathers of n_segments rows (~2.6 ns/row, and n_seg << n_obs)
-plus a cumulative sum (fully vectorized).  Measured on a v5e chip at 1M
-observations x 6 columns: 2.3 ms vs 17.2 ms for scatter-add — 7.6x.
+Scatter-add serializes conflicting row updates.  For a SORTED id
+stream, a segment sum is expressible instead as differences of prefix
+sums: two row-gathers of n_segments rows (n_seg << n_obs) plus a
+cumulative sum (fully vectorized).  Whether this beats
+``jax.ops.segment_sum(..., indices_are_sorted=True)`` on the GPU is yet
+to be measured.
 
 The prefix sum is hierarchical (per-chunk inclusive scan + a second-level
 scan of chunk totals) so float32 cancellation error stays bounded by the
@@ -81,15 +81,8 @@ def sorted_segment_sum(vals, layout: SegmentLayout):
     """Segment sum of a sorted stream. vals (N, D) -> (n_seg, D).
 
     N is padded to a multiple of CHUNK; rows past the last segment's end
-    are ignored (pad ids beyond n_seg).
-
-    Pure-jnp hierarchical prefix: measured on the real v5e chip at 1M
-    rows x {3,6,21} cols it runs ~3 ms vs ~5-6 ms for the Pallas
-    chunk-prefix kernel (ops/attic/prefix.py) and ~11 ms for scatter-add
-    — XLA's multi-pass cumsum beats the hand-written Hillis-Steele scan
-    here.  The hand-kernel lineage that DID win is the banded fused
-    operator (ops/fusedmv.py), which replaces whole passes rather than
-    re-implementing this one."""
+    are ignored (pad ids beyond n_seg).  Pure jnp: XLA's cumsum plus two
+    boundary gathers."""
     begs, ends = layout.rows()
     n, d = vals.shape
     if n % CHUNK != 0:

@@ -1,13 +1,14 @@
 """Device mesh construction + multi-host initialization.
 
 The reference is a single MATLAB process (SURVEY.md §2.5 — no parallelism
-anywhere); everything here is new TPU-native capability.
+anywhere); everything here is new capability.
 
 One logical axis suffices for bundle adjustment: ``obs`` — the observation
 axis is embarrassingly parallel (per-observation residual/Jacobian work)
 and all coupling flows through segment-sum reductions onto camera/point
-state, which become ``psum`` collectives over ICI.  Across hosts the same
-axis spans DCN; `jax.distributed.initialize` wires the multi-host runtime.
+state, which become ``psum`` collectives.  Across hosts the same axis
+spans the network; `jax.distributed.initialize` wires the multi-host
+runtime.
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Multi-host bring-up (no-op when single-process).
 
-    On a TPU pod slice the three arguments are inferred from the TPU
-    environment; on CPU/GPU fleets pass them explicitly."""
+    Pass the three arguments explicitly (coordinator as host:port)."""
     if num_processes is not None and num_processes > 1 or coordinator is not None:
         jax.distributed.initialize(
             coordinator_address=coordinator,

@@ -1,5 +1,5 @@
 """Sharded camera-state distributed solver (SURVEY §2.5 row 2 — the BA
-analogue of tensor parallelism; VERDICT r1 item 6).
+analogue of tensor parallelism).
 
 parallel/dist_schur.py replicates all camera/point state and psums every
 reduction: per-device memory for CG state and the pose preconditioner
@@ -59,6 +59,7 @@ from fish_eye_bundle_adjustment_tpu.solver.schur import (
     _segsum,
     _stable_sum,
     run_gn_loop,
+    step_precision,
     unpermute_v,
 )
 from fish_eye_bundle_adjustment_tpu.utils.layout import ParamLayout
@@ -142,6 +143,10 @@ def make_sharded_camera_step(problem: BAProblem, mesh,
     adaptive = opts.adaptive_damping
 
     def body(x, obs_l: ObsData, ts_l, cg_tol, lam):
+        with step_precision():
+            return _body(x, obs_l, ts_l, cg_tol, lam)
+
+    def _body(x, obs_l, ts_l, cg_tol, lam):
         q = x * scale
         lam_t = lam if adaptive else None
         wx, wy = obs_l.W[:, 0], obs_l.W[:, 1]

@@ -11,18 +11,17 @@ from __future__ import annotations
 
 from pathlib import Path
 
-import numpy as np
-
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-
-from fish_eye_bundle_adjustment_tpu.solver import stats as stats_mod  # noqa: E402
-from fish_eye_bundle_adjustment_tpu.solver.dense import DenseResult  # noqa: E402
+from fish_eye_bundle_adjustment_tpu.solver import stats as stats_mod
+from fish_eye_bundle_adjustment_tpu.solver.dense import DenseResult
 
 
 def write_plots(result: DenseResult, out_dir) -> list:
+    # matplotlib is optional: imported only when plots are asked for
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     out_dir = Path(out_dir)
     stem = Path(result.problem.settings.output_filename or "adjustment.out").stem
     layout = result.layout

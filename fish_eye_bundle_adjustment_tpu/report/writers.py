@@ -150,7 +150,7 @@ def write_reports(
 
     with open(out_path, "w") as f:
         f.write(f"Version: {version}\n")
-        f.write("TPU-native Fish-eye Bundle Adjustment (fish_eye_bundle_adjustment_tpu)\n")
+        f.write("Fish-eye Bundle Adjustment (fish_eye_bundle_adjustment_tpu)\n")
         if "dirty" in version:
             # dirty-run provenance: list modified files (main.m:41-50)
             for name in _git_modified_files():
@@ -356,7 +356,7 @@ def write_reports(
     par_path = out_dir / f"{stem}.par"
     with open(par_path, "w") as f:
         f.write(
-            "Created with TPU-native Fish-eye Bundle Adjustment version:\t"
+            "Created with Fish-eye Bundle Adjustment version:\t"
             f"{version}\t\n"
         )
         f.write(f"Execution date\t{date}\t\n\t\t\n")

@@ -17,13 +17,14 @@ Hcp Hpp^-1 Hpc = Ghat' Ghat with Ghat[(t,p),(i,e)] = sum_o (D_o R_t)[e,p]
 (R = chol(Hpp^-1)) — ONE dense scatter per tie chunk followed by BLAS
 GEMMs, covering the ee/ei/ii corrections in a single product; the point
 variances are one quadratic form diag3(Hpp^-1 + K' Cc K) per tie chunk.
-Everything runs in float64 on the host (BLAS rates; the TPU backend has
-no f64 LU) — measured 52.9 s at 500 images vs 434 s for the r4
-pair-enumerated path (of which 365 s was closure-constant XLA compile).
+Everything is float64: the linearization and the per-observation Hcc and
+coupling blocks run jitted on the default device; the dense S assembly,
+its GEMMs and the inverse run in numpy on the host.
 
 Complexity: GEMM flops ~ nc^2 * 3*n_tie (~n_img^3 at fixed density), S
-is (6*n_img + n_cam*ni)^2 — gated by ``max_images`` (default 1000,
-~6-8 min of host BLAS at the edge; opt in higher explicitly).  Past the gate the
+is (6*n_img + n_cam*ni)^2 — gated by ``max_images`` (default 1000, a
+gate tuned on an earlier accelerator that is yet to be measured on the
+GPU; opt in higher explicitly).  Past the gate the
 solver returns std=None and the report writes n/a rather than NaN
 columns.
 """
@@ -58,32 +59,13 @@ def schur_covariance(
 ) -> Optional[SchurCovariance]:
     """Covariance diagonal (stds) + camera-block covariance at solution x.
 
-    Returns None when n_img exceeds `max_images`.  The r5 gate default
-    dropped 2000 -> 1000: cost scales ~n_img^3 (measured 52.9 s at 500
-    images), so the old gate edge meant a surprise ~30-55 min report
-    step; past the gate the deflated estimator (annotated in the report)
-    is the default and `max_images` stays available as an opt-in.
+    Returns None when n_img exceeds `max_images`: cost scales
+    ~n_img^3, and past the gate the deflated estimator (annotated in the
+    report) is the default; `max_images` stays available as an opt-in.
     """
-    from fish_eye_bundle_adjustment_tpu.solver.schur import (
-        ObsData,
-        SchurKernel,
-        SchurOptions,
-    )
-
     if problem.n_img > max_images:
         return None
 
-    # This path is float64 (metrology-grade inversion) with host BLAS
-    # GEMMs for the Schur corrections: pin it to the CPU backend — TPU
-    # f64 is emulated and the r5 GEMM rewrite made host compute cheap
-    # (52.9 s at 500 images, of which the dense work is BLAS-rate).
-    # The deflated Hutchinson estimator below is the on-chip path.
-    cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu):
-        return _schur_covariance_impl(problem, layout, x, sigma02)
-
-
-def _schur_covariance_impl(problem, layout, x, sigma02):
     from fish_eye_bundle_adjustment_tpu.solver.schur import (
         ObsData,
         SchurKernel,
@@ -113,8 +95,7 @@ def _schur_covariance_impl(problem, layout, x, sigma02):
     # ---- Hcc blocks (no Schur correction) ------------------------------
     # NB: fac/weights enter as ARGUMENTS — a zero-arg closure embeds the
     # ~1M-row streams as jaxpr constants and XLA spends minutes
-    # constant-folding them at compile (measured 365 s of the r4 434 s
-    # total: 5 closures x ~73 s compile each)
+    # constant-folding them at compile
     @jax.jit
     def hcc_blocks(fac, obs, wx, wy):
         out = {}
@@ -210,9 +191,8 @@ def _schur_covariance_impl(problem, layout, x, sigma02):
             S[io + c * ni : io + (c + 1) * ni, io + c * ni : io + (c + 1) * ni] = ii[c]
 
     # ---- Schur correction U = G_hat' G_hat as chunked dense BLAS GEMMs --
-    # r4 enumerated observation PAIRS (5.1M gathers + a (P, 36) scatter
-    # per chunk, 434 s at 500 images and a 65 GB broadcast OOM on-chip).
-    # But the correction Hcp Hpp^-1 Hpc factorizes per tie:
+    # Enumerating observation PAIRS costs one gather per pair plus a
+    # (P, 36) scatter per chunk.  But the correction Hcp Hpp^-1 Hpc factorizes per tie:
     #     U[(i,e),(j,f)] = sum_t  Ghat_t' Ghat_t,
     #     Ghat[(t,p), (i,e)] = sum_{o: tie=t, img=i} (D_o R_t)[e, p]
     # with Hpp^-1 = R R' (Cholesky), extended with the folded IOP columns
@@ -369,11 +349,19 @@ def estimate_schur_stds(
     across probes.  With `mesh`, the probe solves run SPMD over it
     (obs-sharded shard_map, the dist_schur scheme) instead of rebuilding
     the problem on one device — the distributed solvers pass their own
-    mesh (VERDICT r3 item 6).  Single-device probes reuse the banded
-    fused matvec when it applies, so the CG sweeps inside each probe run
-    on the Pallas kernel.
+    mesh.  The probe solves run f32 under solver.schur.step_precision().
     """
-    import jax.sharding as jsh
+    from fish_eye_bundle_adjustment_tpu.solver.schur import step_precision
+
+    with step_precision():
+        return _estimate_schur_stds(
+            problem, layout, x, sigma02, n_probe, seed, cg_tol, cg_maxiter,
+            dtype, mesh,
+        )
+
+
+def _estimate_schur_stds(problem, layout, x, sigma02, n_probe, seed, cg_tol,
+                         cg_maxiter, dtype, mesh):
     from jax import shard_map
 
     from fish_eye_bundle_adjustment_tpu.solver.schur import (
@@ -381,23 +369,16 @@ def estimate_schur_stds(
         SchurKernel,
         SchurOptions,
         _pcg,
-        make_band_plan,
         make_projection_builder,
     )
 
     opts = SchurOptions(dtype=dtype, obs_order="tie")
     if mesh is None:
         kernel = SchurKernel(layout, opts, obs_order="tie")
-        band_plan = make_band_plan(problem, layout, opts)
-        if band_plan is not None:
-            obs = ObsData.from_problem(
-                problem, layout, dtype=dtype, band_plan=band_plan
-            )
-        else:
-            order = ObsData.sort_order_by_tie(problem, layout)
-            obs = ObsData.from_problem(
-                problem, layout, dtype=dtype, order=order, with_plan=True
-            )
+        order = ObsData.sort_order_by_tie(problem, layout)
+        obs = ObsData.from_problem(
+            problem, layout, dtype=dtype, order=order, with_plan=True
+        )
     else:
         from functools import partial as _partial
 
@@ -432,8 +413,6 @@ def estimate_schur_stds(
         pair (zc - M ec, zp - Hpp^-1 ep); with ep = 0 the first entry
         samples the camera block, with ec = 0 the second samples the
         point-block correction K' Cc K ep (y0 = Hpp^-1 ep cancels).
-        `ep` arrives/leaves in layout slot order; internals run in the
-        solver's tie id space (rank under the banded plan).
 
         `V` (nc, k) is the DEFLATION basis: the CG right-hand side is
         projected onto its orthogonal complement, so the probe samples
@@ -444,8 +423,7 @@ def estimate_schur_stds(
         precond = fac.make_preconditioner()[0]
         wx, wy = fac._w
         if nt:
-            ep_i = fac.tie_from_layout_order(ep)
-            y0 = fac._hpp_inv_apply(ep_i)
+            y0 = fac._hpp_inv_apply(ep)
             px, py = fac._point_apply(y0)
             rhs = ec - fac._cam_applyT(wx * px, wy * py)
         else:
@@ -458,7 +436,7 @@ def estimate_schur_stds(
             ax, ay = fac._cam_apply(zc)
             t = fac._point_applyT(wx * ax, wy * ay)
             # (zp - y0) = K' Cc K ep for ec = 0
-            zp_corr = fac.tie_to_layout_order(-fac._hpp_inv_apply(t))
+            zp_corr = -fac._hpp_inv_apply(t)
         else:
             zp_corr = jnp.zeros((0, 3), zc.dtype)
         return zc - precond(ec), zp_corr
@@ -472,7 +450,7 @@ def estimate_schur_stds(
             return jnp.zeros((0, 3), v.dtype)
         ax, ay = fac._cam_apply(v)
         t = fac._point_applyT(wx * ax, wy * ay)
-        return fac.tie_to_layout_order(-fac._hpp_inv_apply(t))
+        return -fac._hpp_inv_apply(t)
 
     def precond_apply(q, obs, v):
         fac = kernel.linearize(q, obs)
@@ -480,9 +458,7 @@ def estimate_schur_stds(
 
     def hpp_inv_diag(q, obs):
         fac = kernel.linearize(q, obs)
-        return fac.tie_to_layout_order(
-            fac.Hpi_flat[:nt][:, (0, 4, 8)]
-        )  # (nt, 3) exact diag, slot order
+        return fac.Hpi_flat[:nt][:, (0, 4, 8)]  # (nt, 3) exact diag
 
     if mesh is None:
         jitted = jax.jit(solve_probe)

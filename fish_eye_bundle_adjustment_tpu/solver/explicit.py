@@ -1,23 +1,15 @@
 """Explicitly materialized reduced camera system (dense S) — the
-single-chip fast path.
+small-problem single-device path.
 
-The matrix-free Schur matvec re-pays per-row data movement on every CG
-iteration: measured in-jit on a v5e chip, EVERY per-row indexed op on a
-1M-row stream costs ~1.5-3.5 ms (gather ~3.4 ns/row random / ~2 ns
-sorted, scatter ~10 ns/row, sorted segment sum ~1.5-2.5 ms) *independent
-of row width*, while contiguous streaming runs at 600+ GB/s and batched
-arithmetic is essentially free.  Ten CG iterations therefore cost
-~10 x 11.6 ms of pure redistribution.
-
-This module exploits the width-independence the other way: pay the
-per-row cost ONCE per Gauss-Newton step to materialize the reduced
-camera system
+The matrix-free Schur matvec re-pays its per-row gathers and segment
+sums on every CG iteration.  This module pays the per-row cost ONCE per
+Gauss-Newton step to materialize the reduced camera system
 
     S = Hcc - Hcp Hpp^-1 Hpc          (nc x nc, nc = 6 n_img + n_cam ni)
 
-as a dense matrix, after which every CG matvec is a dense GEMV
-(~144 MB read at 1k images -> ~0.25 ms, MXU/bandwidth bound) and the
-Schur-Jacobi preconditioner falls out of S's diagonal for free.
+as a dense matrix, after which every CG matvec is a dense GEMV (~144 MB
+read at 1k images in f32, bandwidth bound) and the Schur-Jacobi
+preconditioner falls out of S's diagonal for free.
 
 The coupling term is a sum over observation PAIRS sharing a tie point
 (each (image, point) pair has exactly one observation, reference
@@ -34,11 +26,9 @@ existing image-axis plan.  Everything else (rhs, back-substitution,
 residual stats) reuses the matrix-free SchurFactors streams.
 
 Layout note: every large array here is kept strictly 2-D with the small
-block dimension FLATTENED into columns.  XLA:TPU tiles the trailing two
-dimensions of every array to (8, 128) — a rank-3 f32[P, 6, 6] therefore
-physically occupies P * 8 * 128 floats (21x padding; at P = 5M pairs that
-is a 20 GB allocation, measured as a compile-time OOM).  Flat (P, 36)
-columns with unrolled index arithmetic tile cleanly.
+block dimension FLATTENED into columns — flat (P, 36) columns with
+unrolled index arithmetic instead of rank-3 (P, 6, 6) blocks, whose small
+trailing dimensions pad badly under tiled layouts.
 
 Applicability: dense S costs 36 n_img^2 floats — 144 MB (f32) at 1k
 images, ~2.3 GB at 4k.  ``solve_schur`` auto-selects this path below

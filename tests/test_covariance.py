@@ -2,8 +2,8 @@
 
 The reference reports +-sigma for every unknown from Cx = sigma0^2 N^-1
 (main.m:428-443, 712-897); the dense solver reproduces that exactly, so
-it is the oracle here.  VERDICT r1 item 7: the Schur path must match the
-dense stds to 1e-6 on cam0 (we hold it to 1e-8 relative).
+it is the oracle here: the Schur path must match the dense stds (held
+to 1e-8 relative on cam0).
 """
 
 import numpy as np

@@ -157,13 +157,21 @@ class TestParity:
         np.testing.assert_allclose(resumed.x, full.x, atol=1e-8)
 
 
-class TestF32Fused:
-    def test_fused_interpret_parity(self):
-        """f32 + forced band plan (interpret mode on CPU): the device
-        loop drives the fused kernel path end to end and matches the
-        host loop on the same path."""
+class TestF32:
+    def test_f32_device_loop_matches_host_loop(self, monkeypatch):
+        """f32 on the matrix-free XLA path (explicit S off, so the device
+        loop really runs): same stop, same iterations within one, and the
+        same solution to f32 noise."""
+        import fish_eye_bundle_adjustment_tpu.solver.device_loop as dl
+
+        calls = []
+        real = dl.run_gn_loop_device
+        monkeypatch.setattr(
+            dl, "run_gn_loop_device",
+            lambda *a, **k: calls.append(1) or real(*a, **k),
+        )
         blk = make_block(n_img=6, n_pts=90, model="fisheye", seed=21)
-        kw = dict(dtype=np.float32, obs_order="tie", fused=True)
+        kw = dict(dtype=np.float32, obs_order="tie", explicit_s=False)
         host = solve_schur(
             blk.problem, SchurOptions(device_loop=False, **kw),
             compute_covariance=False,
@@ -173,6 +181,7 @@ class TestF32Fused:
                                       **kw),
             compute_covariance=False,
         )
+        assert calls == [1], "device loop was not used"
         assert dev.stopped_on == host.stopped_on
         assert abs(dev.iterations - host.iterations) <= 1
         np.testing.assert_allclose(dev.x, host.x, rtol=0, atol=5e-4)

@@ -77,7 +77,7 @@ def test_compute_stds_switches_to_estimator_past_gate():
 def test_estimator_on_mesh_matches_single_device():
     """The SPMD probe path (estimate_schur_stds(mesh=...)) reproduces the
     single-device estimate: same probes, same operator, psum'd reductions
-    (VERDICT r3 item 6 — distributed solvers reuse their own mesh)."""
+    (distributed solvers reuse their own mesh)."""
     from fish_eye_bundle_adjustment_tpu.parallel.mesh import make_mesh
 
     problem, res = _solved(n_img=12, n_pts=150, seed=9)

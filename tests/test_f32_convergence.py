@@ -1,6 +1,6 @@
-"""f32 convergence evidence (VERDICT r1 item 4 / BASELINE throughput).
+"""f32 convergence evidence.
 
-The bench runs GN steps in float32 on the TPU; that is only meaningful if
+The bench runs GN steps in float32 on the device; that is only meaningful if
 f32 iterations make genuine Gauss-Newton progress.  This test converges
 the same solver in f32 and in f64 on a mid-size synthetic block and
 requires the f32 solution to agree with the f64 one to well within the

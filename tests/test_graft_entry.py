@@ -1,10 +1,7 @@
-"""Regression tests for the driver entry shim (__graft_entry__.py).
+"""Regression tests for the entry shim (__graft_entry__.py).
 
-Round 1 shipped a dryrun_multichip that called the distributed step with
-the wrong arity and the driver's multi-chip gate went red
-(MULTICHIP_r01.json ok=false).  These tests literally import the shim and
-run both hooks on the fake 8-device CPU mesh so the contract can never
-rot again.
+These tests import the shim and run both hooks on the fake 8-device CPU
+mesh, so an arity or sharding mistake in either hook fails here.
 """
 
 import sys

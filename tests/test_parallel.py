@@ -102,9 +102,9 @@ class TestPoseGraph:
 
     def test_fusion_weights_by_per_block_observation_count(self):
         """A block that sees a shared target from many rays must dominate
-        a block that saw it twice (VERDICT r2 weak item 3: the old weights
-        used the GLOBAL per-target count, identical across blocks, and
-        cancelled to an unweighted mean)."""
+        a block that saw it twice (weights from the GLOBAL per-target
+        count would be
+        identical across blocks and cancel to an unweighted mean)."""
         blk = make_block(n_img=36, n_pts=400, seed=23)
         p = blk.problem
         parts = partition_images(p, 2)
@@ -138,8 +138,7 @@ class TestPoseGraph:
     @pytest.mark.slow
     def test_selfcalibrating_blocks_fuse_iops(self):
         """Blocks run self-calibrating: the refine warm-start must carry
-        the blocks' fused IOP estimates, not the raw input calibration
-        (VERDICT r1 weak item 6)."""
+        the blocks' fused IOP estimates, not the raw input calibration."""
         blk = make_block(
             n_img=36, n_pts=1200, seed=19,
             settings_overrides={"estimate_c": True, "estimate_xp": True,

@@ -1,6 +1,6 @@
 """Sharded camera-state solver (parallel/sharded_state.py) equality with
-the replicated distributed path and the single-device solver (VERDICT r1
-item 6: psum_scatter pose reductions + all_gather obs-side gather must
+the replicated distributed path and the single-device solver
+(psum_scatter pose reductions + all_gather obs-side gather must
 reproduce the replicated arithmetic)."""
 
 import numpy as np

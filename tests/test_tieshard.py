@@ -1,7 +1,7 @@
 """Tie-axis (point-state) sharding (parallel/tieshard.py + sharded_state
 point_mode='sharded') vs the single-device solver: same solution, with
 per-device point arrays ~ n_tie/N and O(N)-word boundary exchanges
-(SURVEY §2.5 row 2; VERDICT r2/r3 item 5)."""
+(SURVEY §2.5 row 2)."""
 
 import numpy as np
 import pytest
